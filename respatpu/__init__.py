@@ -1,20 +1,22 @@
-"""respatpu: TPU-native mixed-precision sparse linear algebra.
+"""respatpu: mixed-precision sparse linear algebra in JAX, for NVIDIA GPUs.
 
-A from-scratch JAX/XLA/Pallas framework covering the workload of the
+A from-scratch JAX/XLA framework covering the workload of the
 ReSpaSol reduced-precision sparse solver study (see SURVEY.md): Matrix Market
 ingest, CSR SpMV, ILU(0) + level-scheduled sparse triangular solves, sparse LU
 factorize/solve, Krylov solvers, dual-precision (fp32/bf16/emulated-fp64)
 execution with flush-to-zero control, residual verification, corpus sweeps,
-and multi-chip row-partitioned distribution over a `jax.sharding.Mesh`.
+and multi-device row-partitioned distribution over a `jax.sharding.Mesh`.
 """
 
 def _cpu_eft_guard():
     """XLA:CPU's fusion emitter breaks the error-free transforms behind the
     df64 (emulated fp64) policy; disable the fusion pass when the CPU backend
-    is requested. TPU keeps fusion (unaffected). Must run before jax backend
-    initialization; precision.eft_selfcheck() warns if it was too late."""
+    is the only platform requested: a platform list that names a GPU too
+    must keep fusion, which the GPU needs for speed and does not break EFTs.
+    Must run before jax backend initialization; precision.eft_selfcheck()
+    warns if it was too late."""
     import os
-    if "cpu" in os.environ.get("JAX_PLATFORMS", "").split(","):
+    if os.environ.get("JAX_PLATFORMS", "").split(",") == ["cpu"]:
         flags = os.environ.get("XLA_FLAGS", "")
         if "--xla_disable_hlo_passes=fusion" not in flags:
             os.environ["XLA_FLAGS"] = (

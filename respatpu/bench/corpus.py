@@ -10,6 +10,7 @@ and benchmarks always run. Synthetic substitution is reported in results.
 from __future__ import annotations
 
 import os
+import zlib
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -120,4 +121,4 @@ def load_matrix(name: str, allow_synthetic: bool = True,
         n = max(1000, int(n * scale))
         nnz = max_synth_nnz
     return synth_like(e.name, n, nnz, e.kind,
-                      seed=abs(hash(e.name)) % (2 ** 31)), True
+                      seed=zlib.crc32(e.name.encode())), True

@@ -1,9 +1,9 @@
-"""Distributed SpMV scaling measurement (BASELINE.md: nnz/s at 1 chip /
-1 host / N>=2 hosts; the MUMPS-scaling slot of the reference protocol).
+"""Distributed SpMV scaling measurement (nnz/s at 1 device / N devices;
+the MUMPS-scaling slot of the reference protocol).
 
-On real pods this measures ICI-halo-exchange SpMV throughput per device
-count; on a virtual CPU mesh it validates the partitioning/collective logic
-and reports relative scaling (absolute CPU numbers are not meaningful).
+On GPUs this measures halo-exchange SpMV throughput per device count; on a
+virtual CPU mesh it validates the partitioning/collective logic and reports
+relative scaling (absolute CPU numbers are not meaningful).
 """
 from __future__ import annotations
 

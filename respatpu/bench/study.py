@@ -6,9 +6,8 @@ and record phase times + relative residuals:
   * df64   — emulated fp64 direct band LU (the "reference" config)
   * fp32   — fp32 band LU, raw
   * fp32_ftz — fp32 with explicit subnormal flush (the paper's FTZ config;
-               note TPU hardware flushes subnormals natively, so on-device
-               this measures the software-masked variant; on CPU it isolates
-               the subnormal effect the paper reports)
+               XLA keeps subnormals unless asked, so this isolates the
+               subnormal effect the paper reports)
   * fp32+ir — fp32 LU + df64 iterative refinement (the paper's conclusion:
               low-precision factorization can deliver fp64-level accuracy)
 
@@ -69,15 +68,15 @@ def run_study(names: Optional[Sequence[str]] = None,
                     used = fac.report.notes
                     if config != "df64" and hasattr(fac, "refactorize_timed"):
                         # warm (exec-only) retiming; skipped for df64 whose
-                        # factorization is minutes-long (VPU-bound) and
-                        # already dominated by execution, not compile
+                        # factorization is minutes-long (elementwise
+                        # double-float) and dominated by execution
                         t_warm = fac.refactorize_timed()
                     if (config == "df64" and
                             isinstance(fac, slv.SupernodalLuFactorization)):
-                        # the multifrontal numeric phase is fp32-only (MXU);
+                        # the multifrontal numeric phase is fp32-only;
                         # the df64 *reference* config there is fp32 factors
                         # + df64 IR driven to ~1e-14 — the standard
-                        # reference-accuracy recipe on fp64-less hardware
+                        # mixed-precision reference-accuracy recipe
                         used += ",df64_ref=fp32+ir"
                         x, rep = slv.solve_refined(a, b, fac=fac, tol=1e-14)
                     else:

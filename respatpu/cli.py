@@ -196,6 +196,8 @@ def main(argv=None):
     sp.set_defaults(fn=cmd_scaling)
 
     args = p.parse_args(argv)
+    from .config import enable_compile_cache
+    enable_compile_cache()
     args.fn(args)
 
 

@@ -9,12 +9,32 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from dataclasses import dataclass, field
 from typing import List, Optional
 
 from .precision import Policy, get_policy
 
-__all__ = ["ExperimentConfig"]
+__all__ = ["ExperimentConfig", "compile_cache_dir", "enable_compile_cache"]
+
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def compile_cache_dir() -> str:
+    """``$JAX_COMPILATION_CACHE_DIR`` when set, else ``<checkout>/.jax_cache``."""
+    return (os.environ.get("JAX_COMPILATION_CACHE_DIR")
+            or os.path.join(_CHECKOUT, ".jax_cache"))
+
+
+def enable_compile_cache() -> str:
+    """Keep JAX's persistent compilation cache in :func:`compile_cache_dir`.
+
+    Entry points call this before their first compilation; it is the only
+    place the program sets a cache path. Returns the path."""
+    import jax
+    path = compile_cache_dir()
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 @dataclass

@@ -1,8 +1,10 @@
-"""Multi-chip / multi-host distribution: row-partitioned SpMV and solvers.
+"""Multi-device / multi-host distribution: row-partitioned SpMV and solvers.
 
 Replaces the reference's only distributed path — MUMPS over MPI/ScaLAPACK
-(test_mumps.c:87-158) — with the TPU-native stack: a 1-D `jax.sharding.Mesh`
-over the row axis, `shard_map` kernels, and XLA collectives over ICI/DCN.
+(test_mumps.c:87-158) — with a 1-D `jax.sharding.Mesh` over the row axis,
+`shard_map` kernels, and XLA collectives (NCCL on GPUs). A 1-D mesh suits
+cards joined all to all by NVLink: every pair exchanges at the same rate, so
+the mesh follows the algorithm alone.
 
 Design (SURVEY.md §5.7): the matrix is split into contiguous row bands, one
 per device; x is partitioned identically. Each shard's rows reference a small
@@ -14,9 +16,8 @@ set of remote x entries ("halo"). The halo plan is computed once on host:
 
 One `all_to_all` moves exactly the needed entries (padded to the max halo H),
 then the local SpMV is the same dense gather/multiply/reduce as the
-single-chip kernel. Collectives ride ICI inside a slice; `jax.distributed`
-extends the same code across hosts (no MPI analogue needed -- XLA owns
-transport).
+single-device kernel. `jax.distributed` extends the same code across hosts
+(no MPI analogue needed -- XLA owns transport).
 """
 from __future__ import annotations
 
@@ -28,10 +29,7 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from .formats import CSRMatrix
@@ -213,7 +211,7 @@ def dist_spmv_fn(plan: RowPartitionPlan, mesh: Mesh, axis: str = "row"):
 
     Sub-rows are split into interior (all-local columns) and boundary (needs
     halo) blocks; the interior partials have no data dependence on the
-    `all_to_all`, so XLA's async-collective scheduler overlaps the ICI
+    `all_to_all`, so XLA's async-collective scheduler overlaps the halo
     exchange with the interior compute (the ring-attention-shaped pipeline of
     this domain, SURVEY.md §5.7).
     """
@@ -361,7 +359,7 @@ class BlockJacobiIlu:
     def __init__(self, a: CSRMatrix, plan: RowPartitionPlan, mesh: Mesh,
                  axis: str = "row", sweeps: int = 8, apply_sweeps: int = 8):
         from .formats import COOMatrix, coo_to_csr
-        from .kernels.ilu0 import ilu0_factor
+        from .kernels.ilu0 import ilu0_converged
         from .formats import split_triangular
 
         self.mesh = mesh
@@ -399,7 +397,7 @@ class BlockJacobiIlu:
                                            np.concatenate([coo.col, missing]),
                                            np.concatenate([coo.val,
                                                            np.ones(missing.size)])))
-            res, _ = ilu0_factor(blk, policy="fp32", sweeps=sweeps)
+            res, _ = ilu0_converged(blk, policy="fp32", sweeps=sweeps)
             vals = np.asarray(res.values, np.float64)
             factor = CSRMatrix(blk.shape, blk.indptr, blk.indices, vals)
             L, dfac, U = split_triangular(factor)

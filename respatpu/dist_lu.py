@@ -3,8 +3,8 @@
 This fills the reference's MUMPS slot (job=4 analyze+factorize at
 test_mumps.c:121-128, job=3 solve at test_mumps.c:136-143): a *direct*
 distributed sparse solver. The reference delegates to MUMPS's multifrontal
-factorization over MPI/ScaLAPACK; a TPU-native design wants bulk MXU work
-per device with few, small, statically-shaped collectives — which is exactly
+factorization over MPI/ScaLAPACK; a device-mesh design wants bulk dense
+GEMM work per device with few, small, statically-shaped collectives — which is exactly
 the SPIKE partitioned-band algorithm (Polizzi & Sameh), not a translated
 block-cyclic ScaLAPACK loop:
 
@@ -19,7 +19,7 @@ block-cyclic ScaLAPACK loop:
      every device runs the blocked band LU scan (kernels/bandlu._lu_core) on
      its own A_j, then computes the SPIKE tips — the top/bottom (ml+mu)·p
      rows of V_j = A_j⁻¹[0;B_j] and W_j = A_j⁻¹[C_j;0] via the multi-RHS
-     block-substitution solve (MXU GEMMs). One ``all_gather`` of the tips
+     block-substitution solve (GEMMs). One ``all_gather`` of the tips
      builds the *reduced system* R (block tridiagonal, order
      ndev·(ml+mu)·p), which is LU-factored once, replicated.
   4. Solve phase: g_j = A_j⁻¹ b_j locally; ``all_gather`` the (ml+mu)·p tip
@@ -37,7 +37,7 @@ hardware. Like the single-chip band path, tiny pivots are perturbed
 mesh into the report.
 
 Communication cost per solve: one all_gather of (ml+mu)·p·nrhs floats per
-device over ICI + a replicated dense solve of the reduced system — no other
+device + a replicated dense solve of the reduced system — no other
 traffic; the factorization itself is communication-free.
 """
 from __future__ import annotations
@@ -48,10 +48,7 @@ from typing import Optional, Tuple, Union
 import jax
 import jax.numpy as jnp
 import numpy as np
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from . import precision as prec

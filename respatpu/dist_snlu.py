@@ -2,8 +2,7 @@
 
 This is the MUMPS slot (test_mumps.c:121-143, job=4 analyze+factorize and
 job=3 solve over MPI) for *arbitrary* sparse patterns — the round-1 SPIKE
-path (dist_lu.py) covers only band-feasible matrices.  The TPU-native
-design follows the multifrontal structure directly:
+path (dist_lu.py) covers only band-feasible matrices.  The design follows the multifrontal structure directly:
 
   * symbolic analysis on host (kernels/snlu.py), identical to single-chip;
   * fronts within an elimination-tree level are independent, so each
@@ -11,7 +10,7 @@ design follows the multifrontal structure directly:
     factors ``B/ndev`` fronts with the same batched blocked partial-LU
     kernel the single chip uses (kernels/snlu_device._factor_fronts);
   * the multifrontal extend-add becomes a collective: factored fronts and
-    child Schur contributions are ``all_gather``-ed over ICI and applied to
+    child Schur contributions are ``all_gather``-ed over the mesh and applied to
     the (replicated) front pool by every device, keeping the pool
     bit-identical across the mesh with communication proportional to the
     level's front volume, not the pool.
@@ -93,11 +92,7 @@ def _mesh_group_fn(mesh, axis, wp: int, mp: int, nb: int):
     # the pool output IS replicated (every device applies the same
     # all_gathered updates), but the vma/rep inference cannot prove it
     # through scatter ops — disable the check
-    try:
-        fn = shard_map(kern, check_vma=False, **specs)
-    except TypeError:
-        fn = shard_map(kern, check_rep=False, **specs)
-    return jax.jit(fn)
+    return jax.jit(shard_map(kern, check_vma=False, **specs))
 
 
 def frontal_factor_mesh(plan, mesh=None, axis: str = "row",

@@ -2,12 +2,12 @@
 
 Replaces the reference's ``CSR``/``COO`` structs and COO->CSR conversion
 (ReadMatrixMarket/loadMatrixMarket.h:17-36, loadMatrixMarket.cpp:216-242) with
-numpy-backed containers plus TPU-friendly padded layouts.
+numpy-backed containers plus padded static-shape device layouts.
 
 Design: host-side structure (numpy int32 index arrays) is analyzed once per
 matrix; device kernels only ever see *static-shape* dense arrays produced here
 (padded row-block "ELLR" layout, level-set schedules, ...), so everything under
-``jit`` is shape-static and XLA/Mosaic can tile it.
+``jit`` is shape-static and XLA can fuse it.
 """
 from __future__ import annotations
 
@@ -173,7 +173,7 @@ class EllrMeta:
 
 @dataclass
 class EllpackR:
-    """TPU device layout for SpMV: fixed-K padded sub-rows.
+    """Device layout for SpMV: fixed-K padded sub-rows.
 
     Rows longer than K nnz are split into several sub-rows; a second static
     combine stage (``part_idx``/``part_mask``) sums sub-row partials back into

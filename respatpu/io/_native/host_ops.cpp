@@ -1228,107 +1228,4 @@ int rcm_order(int64_t n, const int64_t* indptr, const int32_t* indices,
   return 0;
 }
 
-// ---------------------------------------------------------------------------
-// GSELL mosaic slot packing (kernels/gsell.py host analysis, C++ fast path).
-// For each 128-row bank, pack entries (local row r, lane position u = col%128,
-// window-relative segment q) into slots: a slot holds at most one entry per
-// row-lane and one segment per position.  Entries sharing (u,q) form a cell
-// and can share a slot (their rows are distinct).  Greedy first-fit, largest
-// cells first — the same algorithm as the Python reference implementation,
-// parallelized over banks.
-//
-// Inputs are global CSR arrays; qrel/out-of-window handling is done here so
-// Python never touches per-entry data in a loop.  slot_of[k] = -1 marks a
-// spilled entry (out of window or beyond hard_cap).
-int gsell_pack(int64_t n, const int64_t* indptr, const int32_t* indices,
-               int64_t nbank, int64_t win_segs, int64_t hard_cap,
-               const int64_t* wbase /* per group, in segments */,
-               int32_t* slot_of /* out, nnz */,
-               int32_t* demands /* out, per bank */,
-               int32_t nthreads) {
-  const int64_t nbanks = (n + 127) / 128;
-  if (nthreads <= 0) nthreads = (int32_t)std::thread::hardware_concurrency();
-  if (nthreads <= 0) nthreads = 1;
-  if (hard_cap > 4096) return -1;
-  std::atomic<int64_t> next(0);
-  std::vector<std::thread> threads;
-  for (int t = 0; t < nthreads; ++t)
-    threads.emplace_back([&]() {
-      // per-thread slot state
-      std::vector<int16_t> slot_u((size_t)hard_cap * 128);
-      std::vector<uint8_t> slot_rows((size_t)hard_cap * 128);
-      struct Ent { int32_t r, u, q; int64_t k; };
-      std::vector<Ent> ents;
-      std::vector<int64_t> cell_start;
-      std::vector<int32_t> order;
-      for (;;) {
-        int64_t b = next.fetch_add(1);
-        if (b >= nbanks) break;
-        const int64_t r0 = b * 128, r1 = std::min(n, (b + 1) * 128);
-        const int64_t lo = indptr[r0], hi = indptr[r1];
-        const int64_t base = wbase[b / nbank];
-        ents.clear();
-        for (int64_t r = r0; r < r1; ++r)
-          for (int64_t k = indptr[r]; k < indptr[r + 1]; ++k) {
-            const int64_t c = indices[k];
-            const int64_t q = c / 128 - base;
-            if (q < 0 || q >= win_segs) { slot_of[k] = -1; continue; }
-            ents.push_back({(int32_t)(r - r0), (int32_t)(c % 128),
-                            (int32_t)q, k});
-          }
-        // sort by (u, q) to form cells, then cells by size desc
-        std::sort(ents.begin(), ents.end(), [](const Ent& a, const Ent& e) {
-          return a.u != e.u ? a.u < e.u : (a.q != e.q ? a.q < e.q
-                                                      : a.r < e.r);
-        });
-        cell_start.clear();
-        for (size_t i = 0; i < ents.size(); ++i)
-          if (i == 0 || ents[i].u != ents[i - 1].u || ents[i].q != ents[i - 1].q)
-            cell_start.push_back((int64_t)i);
-        cell_start.push_back((int64_t)ents.size());
-        const size_t ncells = cell_start.size() - 1;
-        order.resize(ncells);
-        for (size_t i = 0; i < ncells; ++i) order[i] = (int32_t)i;
-        std::stable_sort(order.begin(), order.end(),
-                         [&](int32_t a, int32_t e) {
-          return (cell_start[a + 1] - cell_start[a]) >
-                 (cell_start[e + 1] - cell_start[e]);
-        });
-        std::fill(slot_u.begin(), slot_u.end(), (int16_t)-1);
-        std::fill(slot_rows.begin(), slot_rows.end(), (uint8_t)0);
-        int64_t n_slots = 0;
-        for (size_t ci = 0; ci < ncells; ++ci) {
-          const int64_t cb = cell_start[order[ci]];
-          const int64_t ce = cell_start[order[ci] + 1];
-          const int32_t uu = ents[cb].u, qq = ents[cb].q;
-          int64_t placed = 0, count = ce - cb;
-          for (int64_t s = 0; s < hard_cap && placed < count; ++s) {
-            if (s == n_slots) ++n_slots;
-            int16_t& squ = slot_u[(size_t)s * 128 + uu];
-            if (squ != -1 && squ != qq) continue;
-            bool any = false;
-            for (int64_t i = cb; i < ce; ++i) {
-              uint8_t& occ = slot_rows[(size_t)s * 128 + ents[i].r];
-              if (slot_of[ents[i].k] == -2 && !occ) {
-                occ = 1;
-                slot_of[ents[i].k] = (int32_t)s;
-                ++placed;
-                any = true;
-              }
-            }
-            if (any) squ = qq;
-          }
-          // anything unplaced spills
-          for (int64_t i = cb; i < ce; ++i)
-            if (slot_of[ents[i].k] == -2) slot_of[ents[i].k] = -1;
-        }
-        demands[b] = (int32_t)n_slots;
-      }
-    });
-  // caller contract: slot_of must arrive initialized to -2 ("unplaced");
-  // the Python wrapper does this before the call
-  for (auto& th : threads) th.join();
-  return 0;
-}
-
 }  // extern "C"

@@ -1,12 +1,15 @@
 """ctypes bindings for the native host library (librespa_host.so).
 
-Auto-builds from source on first use when a C++ toolchain is present; all
-callers fall back to the pure numpy implementations when unavailable, so the
-library works (slower) without any native build.
+The first use in a process runs ``make -C respatpu/io/_native``, which
+rebuilds the library only when ``host_ops.cpp`` is newer, so the loaded
+library is always built from the committed source. Where the build fails
+(no C++ toolchain) no library is loaded, not even one left from an earlier
+build, and all callers fall back to the pure numpy implementations.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 import threading
@@ -35,15 +38,16 @@ class _MtxInfo(ctypes.Structure):
 
 
 def _build() -> bool:
-    src = os.path.join(_NATIVE_DIR, "host_ops.cpp")
-    if not os.path.exists(src):
-        return False
+    # the file lock serialises builds by concurrent processes (test workers)
+    # so none loads a library another is still writing
     try:
-        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                       capture_output=True, timeout=300)
-        return os.path.exists(_SO_PATH)
-    except Exception:
+        with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
+                           capture_output=True, timeout=300)
+    except (OSError, subprocess.SubprocessError):
         return False
+    return os.path.exists(_SO_PATH)
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -53,7 +57,7 @@ def _load() -> Optional[ctypes.CDLL]:
             return _lib
         if _build_failed:
             return None
-        if not os.path.exists(_SO_PATH) and not _build():
+        if not _build():
             _build_failed = True
             return None
         lib = ctypes.CDLL(_SO_PATH)

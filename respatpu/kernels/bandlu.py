@@ -1,10 +1,11 @@
-"""Blocked banded LU factorization and solve on TPU (direct solver path).
+"""Blocked banded LU factorization and solve on the device (direct solver path).
 
 This is our replacement for the sparse LU backends (PARDISO phases 22/33,
 test_pardiso.c:204-244; SuperLU_MT pdgssv, test_superLU_MT.c:168-172): after a
 bandwidth-reducing RCM ordering the matrix is stored as a *block-aligned dense
 band*, and the factorization becomes a sequence of dense P x P block
-operations — exactly what the MXU is built for. Fill-in of an unpivoted band
+operations — dense matrix products, which the device's matrix units run at
+their highest rate. Fill-in of an unpivoted band
 LU stays inside the band, so shapes are static and no symbolic factorization
 is needed.
 
@@ -19,14 +20,15 @@ Factorization (scan over block rows; right-looking):
     Y            = L_D^-1 @ band[r][:, (ml+1)P:]     # U block-row, one TRSM
     for d = 1..ml:                                   # L block-column + update
         X_d      = band[r+d][:, (ml-d)P:(ml-d+1)P] @ U_D^-1     # TRSM
-        band[r+d][:, (ml-d+1)P : (ml-d+1+mu)P] -= X_d @ Y       # GEMM (MXU)
+        band[r+d][:, (ml-d+1)P : (ml-d+1+mu)P] -= X_d @ Y       # GEMM
 
 No pivoting: like PARDISO's default, tiny pivots are perturbed
 (test_pardiso.c:144-148) and accuracy is recovered by mixed-precision
 iterative refinement (solve.py), which is the subject of the reference study.
 
-Precisions: fp32/bf16 single-word (MXU GEMMs), df64 double-float (VPU,
-kernels/dflinalg.py) for the emulated-fp64 reference path.
+Precisions: fp32/bf16 single-word (GEMMs), df64 double-float (elementwise
+error-free transforms, kernels/dflinalg.py) for the emulated-fp64 reference
+path.
 """
 from __future__ import annotations
 
@@ -199,9 +201,9 @@ def _band_lu_single(band: DeviceBand, eps: jax.Array) -> Tuple[jax.Array, jax.Ar
 @functools.partial(jax.jit, static_argnames=("use_ozaki",))
 def _band_lu_df(band: DeviceBand, eps: jax.Array,
                 use_ozaki: bool = False) -> Tuple[Tuple[jax.Array, jax.Array], jax.Array]:
-    # use_ozaki puts trailing GEMMs on the MXU; measured on-chip: exec parity
-    # at moderate bandwidth (TRSM substitution dominates) but ~400x longer
-    # compile, so it stays opt-in until the supernodal path needs big fronts.
+    # use_ozaki runs the trailing GEMMs as exact bf16 matrix products
+    # (kernels/ozaki.py); it compiles far longer than the elementwise
+    # double-float loop, so it stays opt-in.
     from .ozaki import ozaki_matmul
     p, ml, mu = band.p, band.ml, band.mu
     nb = band.nb
@@ -237,8 +239,8 @@ def _band_lu_df(band: DeviceBand, eps: jax.Array,
             cblk = DF(jax.lax.dynamic_slice(s.hi, (0, off + p), (p, mu * p)),
                       jax.lax.dynamic_slice(s.lo, (0, off + p), (p, mu * p)))
             if use_ozaki:
-                # trailing GEMM on the MXU via exact Ozaki slicing (~30x the
-                # VPU double-float rank-1 loop); TRSMs above stay VPU
+                # trailing GEMM as exact bf16 matrix products (Ozaki
+                # slicing); the TRSMs above stay elementwise double-float
                 xy = ozaki_matmul(x, y)
             else:
                 xy = dflinalg.df_matmul(x, y)
@@ -338,7 +340,7 @@ def _solve_core(band: jax.Array, bp: jax.Array, p: int, ml: int,
 @jax.jit
 def _band_solve_single(lu: DeviceBand, b: jax.Array) -> jax.Array:
     """Solve for one RHS (n,) or many (n, nrhs): block substitution; the
-    per-block ops become (P,P)@(P,nrhs) GEMMs — MXU-efficient for nrhs > 1."""
+    per-block ops become (P,P)@(P,nrhs) GEMMs — efficient for nrhs > 1."""
     p = lu.p
     nb = lu.nb
     npad = nb * p

@@ -1,29 +1,24 @@
 """Block-ELL (BELL) SpMV: R x C blocklets with row-group-shared gathers.
 
-The unstructured-SpMV kernel for matrices with *mesh locality* (FEM corpus
-entries: 2cubes_sphere, cfd2, offshore, ...). The TPU's only fast gather is
-the contiguous row gather, and it is row-COUNT limited (~0.6 Grow/s measured,
-width-independent up to 128 lanes — scratch/probe_bell.py). RG-ELL
-(kernels/rgell.py) pays one gather per (row, 8-col-group) slot; BELL shares
-each gather across R consecutive rows: entries are binned into R x C dense
-blocklets keyed by (row//R, col//C), so all entries of R neighbouring mesh
-rows that touch the same C-wide column segment cost ONE x-gather:
+A blocked SpMV layout for matrices with *mesh locality* (FEM corpus
+entries: 2cubes_sphere, cfd2, offshore, ...). RG-ELL (kernels/rgell.py) pays
+one gather per (row, 8-col-group) slot; BELL shares each gather across R
+consecutive rows: entries are binned into R x C dense blocklets keyed by
+(row//R, col//C), so all entries of R neighbouring mesh rows that touch the
+same C-wide column segment cost ONE x-gather:
 
     xg[s]   = x2[sc[s], :]                  # [ns, C] row gather (shared)
     part[s] = sum_c blk[s, :, c] * xg[s, c] # dense blocklet FMA (streamed)
     y       = per-group reduction of part   # reshape-sum + tiny gather
 
-Measured on the corpus stand-ins this cuts gather rows 3-14x vs RG-ELL
-(2cubes_sphere: 0.65 -> 0.076 slots/nnz at 16x32). Scatter-based reductions
-(segment_sum) run at only 0.12 Gslot/s on this platform, so the per-group
-reduction instead pads each group's slot run to a multiple of ``KFIX`` in
-the slot stream (zero blocklets), reduces with a static reshape-sum, and
-combines the few sub-partials per group with an R-wide row gather — all
-static shapes, no scatter.
+The per-group reduction pads each group's slot run to a multiple of
+``KFIX`` in the slot stream (zero blocklets), reduces with a static
+reshape-sum, and combines the few sub-partials per group with an R-wide row
+gather — all static shapes, no scatter, so results are deterministic.
 
-Block shape (R, C) is chosen per matrix by a measured-constant cost model
-(gather 0.62 Grow/s, blocklet stream 705 GB/s); the same model arbitrates
-BELL vs RG-ELL in the ``fmt="auto"`` dispatch (kernels/spmv.to_device).
+Block shape (R, C) is chosen per matrix as the candidate that streams the
+fewest bytes (blocklets, segment indices and gathered x rows): the apply is
+memory-bound, and the byte count follows from the structure alone.
 
 Replaces the same vendor calls as kernels/spmv.py (mkl_sparse_?_mv,
 test_spmv.c:168-180; cusparseSpMV, GPU/spmv.cu:176-195) for the
@@ -42,13 +37,9 @@ from ..formats import CSRMatrix
 from ..precision import Policy, get_policy
 
 __all__ = ["BellMatrix", "build_bell", "DeviceBell", "bell_to_device",
-           "bell_spmv", "estimate_bell", "choose_block_shape"]
+           "bell_spmv", "bell_bytes", "choose_block_shape"]
 
 KFIX = 8  # slot-stream alignment per group (stage-1 reshape-sum width)
-
-# measured kernel constants (scratch/probe_bell.py, TPU v5e-class chip)
-GATHER_ROWS_PER_S = 0.62e9
-BLK_STREAM_BPS = 705e9
 
 
 @dataclasses.dataclass
@@ -78,33 +69,23 @@ def _slot_counts(a: CSRMatrix, r: int, c: int) -> Tuple[int, int, np.ndarray]:
     return uk.size, ngrp, grp_counts
 
 
-def estimate_bell(a: CSRMatrix, r: int, c: int) -> float:
-    """Cost-model seconds per SpMV for block shape (r, c)."""
-    ns, ngrp, grp_counts = _slot_counts(a, r, c)
+def bell_bytes(a: CSRMatrix, r: int, c: int) -> int:
+    """Bytes one fp32 BELL SpMV with block shape (r, c) reads: padded
+    blocklets, their segment indices and gathered x rows, plus the
+    combine-stage gather of ``r``-wide sub-partials."""
+    _, ngrp, grp_counts = _slot_counts(a, r, c)
     padded = np.maximum(-(-grp_counts // KFIX), (grp_counts > 0)) * KFIX
     ns_pad = int(padded.sum())
     mp = int(max((padded // KFIX).max(), 1))
-    t_gather = ns_pad / GATHER_ROWS_PER_S
-    t_stream = ns_pad * (r * c * 4 + c * 4 + 4) / BLK_STREAM_BPS
-    t_stage2 = ngrp * mp / GATHER_ROWS_PER_S
-    return t_gather + t_stream + t_stage2
+    return ns_pad * (r * c * 4 + c * 4 + 4) + ngrp * mp * (r * 4 + 8)
 
 
 _CANDIDATES = ((8, 8), (8, 32), (16, 16), (16, 32), (32, 32))
 
 
-def choose_block_shape(a: CSRMatrix,
-                       mem_cap_bytes: int = 2 << 30) -> Tuple[int, int]:
-    best = None
-    for r, c in _CANDIDATES:
-        ns, _, grp_counts = _slot_counts(a, r, c)
-        padded = np.maximum(-(-grp_counts // KFIX), (grp_counts > 0)) * KFIX
-        if int(padded.sum()) * r * c * 4 > mem_cap_bytes:
-            continue
-        t = estimate_bell(a, r, c)
-        if best is None or t < best[0]:
-            best = (t, (r, c))
-    return best[1] if best else (8, 8)
+def choose_block_shape(a: CSRMatrix) -> Tuple[int, int]:
+    """The candidate shape whose SpMV reads the fewest bytes."""
+    return min(_CANDIDATES, key=lambda rc: bell_bytes(a, *rc))
 
 
 def build_bell(a: CSRMatrix, r: Optional[int] = None,

@@ -1,12 +1,10 @@
 """Dense double-float (emulated fp64) linear algebra building blocks.
 
-Used by the banded LU factorization's df64 path. The MXU cannot be used for
-error-free products (its fp32 accumulation rounds), so df64 dense kernels run
-on the VPU as vectorized elementwise error-free transforms with loop-carried
-accumulation: a P x P df64 matmul is P rank-1 df updates. This is ~30x the
-flops of fp32, which is the honest cost of reference-precision arithmetic on
-hardware without fp64 (the reference's fp64 runs at half MKL fp32 speed for
-the same reason, test_spmv.c protocol).
+Used by the banded LU factorization's df64 path. A matrix unit's fp32
+accumulation rounds, so it cannot form error-free products; df64 dense
+kernels run as vectorized elementwise error-free transforms with
+loop-carried accumulation: a P x P df64 matmul is P rank-1 df updates. This
+is ~30x the flops of fp32, the cost of emulating fp64 with fp32 words.
 """
 from __future__ import annotations
 
@@ -69,7 +67,7 @@ def lu_unpivoted(d: jax.Array, eps: jax.Array):
 
 
 def df_lu_unpivoted(d: DF, eps: jax.Array):
-    """Unpivoted dense LU of a df64 P x P block (VPU, loop over pivots)."""
+    """Unpivoted dense LU of a df64 P x P block (elementwise, loop over pivots)."""
     p = d.hi.shape[0]
     rows = jax.lax.broadcasted_iota(jnp.int32, (p, 1), 0)
     cols = jax.lax.broadcasted_iota(jnp.int32, (1, p), 1)

@@ -1,14 +1,14 @@
 """Diagonal-format (DIA) SpMV: gather-free streaming kernel.
 
-TPUs have no hardware gather, so CSR-style SpMV is index-bound. Stencil and
+CSR-style SpMV reads a column index per entry and gathers x. Stencil and
 near-stencil matrices (5/7/27-point Laplacians: ecology2, atmosmodd/l,
 tmt_unsym, parabolic_fem class) are better served by the diagonal format:
 
     y += D_k * shift(x, off_k)      for each stored diagonal k
 
 which is pure contiguous streaming (values + one slice of x per diagonal, no
-index array at all) and runs at HBM speed-of-light -- in fact below the CSR
-byte model, since column indices vanish. The host analyzer picks the
+index array at all) and is bounded by device-memory bandwidth -- below the
+CSR byte model, since column indices vanish. The host analyzer picks the
 diagonals worth densifying; leftover entries fall back to the ELL gather path
 (hybrid), so any matrix can use this kernel with the dense-diagonal fraction
 riding the fast path.
@@ -124,13 +124,18 @@ def dia_to_device(d: DiaMatrix, policy: Union[str, Policy] = "fp32") -> DeviceDi
 
 @jax.jit
 def _dia_spmv_single(d: DeviceDia, x: jax.Array) -> jax.Array:
+    # like the ELL kernel: x rounded to the storage dtype (and flushed under
+    # FTZ), products and sums in the policy's accumulation dtype
     dt = d.diags[0].dtype
-    xp = jnp.zeros(d.n + 2 * d.xpad, dtype=dt).at[d.xpad:d.xpad + d.ncols].set(
-        x.astype(dt)[:d.ncols])
-    y = jnp.zeros(d.n, dtype=dt)
+    acc = d.policy.accum_dtype
+    xs = prec.ftz(x.astype(dt)[:d.ncols], d.policy.flush_to_zero)
+    xp = jnp.zeros(d.n + 2 * d.xpad, dtype=acc).at[d.xpad:d.xpad + d.ncols].set(
+        xs.astype(acc))
+    y = jnp.zeros(d.n, dtype=acc)
     for k, off in enumerate(d.offsets):  # static unroll -> one fused pass
-        y = y + d.diags[0][k] * jax.lax.dynamic_slice(xp, (d.xpad + off,), (d.n,))
-    return y
+        y = y + d.diags[0][k].astype(acc) * jax.lax.dynamic_slice(
+            xp, (d.xpad + off,), (d.n,))
+    return y.astype(dt)
 
 
 @jax.jit

@@ -1,4 +1,4 @@
-"""ILU(0) factorization on TPU via fine-grained fixed-point sweeps.
+"""ILU(0) factorization via fine-grained fixed-point sweeps.
 
 Replaces ``cusparseXcsrilu02`` (GPU/ilu0.cu:197-275). Algorithm: Chow & Patel,
 "Fine-grained parallel incomplete LU factorization" (SIAM J. Sci. Comput.,
@@ -35,7 +35,12 @@ from ..formats import CSRMatrix
 from ..precision import DF, Policy, get_policy
 
 __all__ = ["DeviceIluSchedule", "ilu_schedule_to_device", "ilu0_factor",
-           "Ilu0Result", "ilu0_host_reference"]
+           "ilu0_converged", "CP_CONVERGED", "Ilu0Result",
+           "ilu0_host_reference"]
+
+# relative fixed-point residual (max|F(v) - v| / max|a|) below which the
+# Chow-Patel sweeps count as converged
+CP_CONVERGED = 1e-2
 
 
 @jax.tree_util.register_pytree_node_class
@@ -181,6 +186,21 @@ def ilu0_factor(a: CSRMatrix, sched: Optional[IluSchedule] = None,
         av = policy.cast_values(data)
         res = _ilu0_single(dev, av, jnp.asarray(pivot_eps, av.dtype), sweeps=sweeps)
     return res, sched
+
+
+def ilu0_converged(a: CSRMatrix, policy: Union[str, Policy] = "fp32",
+                   sweeps: int = 8):
+    """ILU(0) on A's pattern: ``sweeps`` Chow-Patel sweeps, or the exact
+    level-scheduled factorization (kernels/splu.py) when the sweeps have not
+    reached the fixed point. They can grow transiently before settling: the
+    residual was 4e7 after 8 sweeps on a 25k-row FEM stand-in, where 16
+    sweeps reach 3e-4. Returns (result, Chow-Patel residual)."""
+    res, _ = ilu0_factor(a, policy=policy, sweeps=sweeps)
+    cp = float(res.residual)
+    if cp <= CP_CONVERGED:
+        return res, cp
+    from .splu import scheduled_lu_factor
+    return scheduled_lu_factor(a, policy=policy)[0], cp
 
 
 def ilu0_host_reference(a: CSRMatrix) -> np.ndarray:

@@ -1,20 +1,21 @@
-"""Ozaki-scheme df64 matrix multiplication on the MXU.
+"""Ozaki-scheme df64 matrix multiplication on bf16 matrix units.
 
-The double-float (emulated fp64) dense kernels in dflinalg.py run on the VPU
-at ~30x fp32 flop cost because the MXU's fp32 accumulation rounds, breaking
-error-free transforms. The Ozaki splitting (Ozaki, Ogita, Oishi, Rump,
-"Error-free transformations of matrix multiplication...", Numer. Alg. 2012)
-restores exactness on the MXU:
+The double-float (emulated fp64) dense kernels in dflinalg.py run as
+elementwise error-free transforms at ~30x fp32 flop cost, because a matrix
+unit's fp32 accumulation rounds, breaking error-free transforms. The Ozaki
+splitting (Ozaki, Ogita, Oishi, Rump, "Error-free transformations of matrix
+multiplication...", Numer. Alg. 2012) restores exactness on bf16 matrix
+products:
 
 * each df64 operand is split into P slices of w=8 significand bits aligned to
   a per-row (A) / per-column (B) exponent grid, so every slice element is an
   integer multiple of its row/col unit with magnitude < 2^w;
 * slice products are integers < 2^(2w), and a K-panel dot of them is an
   integer < K * 2^(2w); with w=8 and K <= 256 every partial sum fits fp32's
-  24-bit significand EXACTLY -- bf16 x bf16 -> fp32 MXU matmuls are
-  error-free;
+  24-bit significand EXACTLY -- bf16 x bf16 -> fp32 matmuls (cuBLAS or
+  XLA's own GEMM on the GPU's tensor cores) are error-free;
 * the ~P^2/2 slice-product matrices are rescaled by outer(row_unit, col_unit)
-  and accumulated in double-float on the VPU (cheap: O(n^2), not O(n^3)).
+  and accumulated elementwise in double-float (cheap: O(n^2), not O(n^3)).
 
 Accuracy model: ~2^-(w*P) relative to row_max(A) * col_max(B) per output
 (like fp64 for graded matrices; elements tiny relative to their row/col max
@@ -73,7 +74,7 @@ def _split_slices(x: DF, axis: int, nslices: int):
 
 @functools.partial(jax.jit, static_argnames=("nslices",))
 def ozaki_matmul(a: DF, b: DF, nslices: int = OZAKI_SLICES) -> DF:
-    """C = A @ B for df64 operands using exact bf16 MXU matmuls."""
+    """C = A @ B for df64 operands using exact bf16 matmuls."""
     m, k = a.hi.shape
     k2, n = b.hi.shape
     assert k == k2

@@ -1,8 +1,7 @@
 """Row-gather ELL (RG-ELL): unstructured SpMV via 8-wide row gathers.
 
-TPU element gathers run at ~0.15 Gelem/s, but gathering *contiguous rows* of
-a 2-D table is fast (measured 46.7 Gelem/s for 128-wide rows). RG-ELL
-exploits this: x is reshaped to (n/8, 8) groups; each stored entry addresses
+RG-ELL replaces element gathers with gathers of *contiguous rows* of a 2-D
+table: x is reshaped to (n/8, 8) groups; each stored entry addresses
 its group by one row-gather, and the within-group position is resolved by a
 precomputed 8-wide weight stripe (value placed at lane col%8, zeros
 elsewhere). Entries of the same (sub-row, group) pair share one gather and

@@ -12,7 +12,7 @@ multifrontal theory — Duff/Reid; Liu's supernode relaxations):
   4. fundamental supernode partition (parent[j]=j+1 and
      colcount[j]=colcount[j+1]+1) with relaxed amalgamation,
   5. per-supernode dense *frontal* factorization with extend-add of child
-     Schur complements — dense blocks sized for the MXU.
+     Schur complements — dense blocks run as batched GEMMs.
 
 This module ships the complete symbolic machinery plus a NumPy numeric
 multifrontal (factor + solve) that serves as the exact oracle and the

@@ -1,4 +1,4 @@
-"""Exact sparse LU / ILU(0) via level-scheduled elimination on TPU.
+"""Exact sparse LU / ILU(0) via level-scheduled elimination on the device.
 
 The numeric core of the direct solver for matrices whose RCM bandwidth makes
 the dense band path infeasible (circuit-type patterns): the counterpart of

@@ -1,12 +1,12 @@
-"""CSR SpMV on TPU: padded row-block (ELLPACK-R) gather kernel, all precisions.
+"""CSR SpMV: padded row-block (ELLPACK-R) gather kernel, all precisions.
 
 Replaces ``mkl_sparse_d_mv``/``mkl_sparse_s_mv`` (test_spmv.c:168-180) and
 ``cusparseSpMV`` (GPU/spmv.cu:176-195). Structure is preprocessed on host into
 the static-shape :class:`respatpu.formats.EllpackR` layout; the device kernel
 is then a dense gather + multiply + row reduction that XLA fuses into a single
-HBM-bandwidth-bound pass:
+memory-bound pass:
 
-    xg[s, t] = x[cols[s, t]]          # gather (XLA native on TPU)
+    xg[s, t] = x[cols[s, t]]          # gather (ordinary loads on the GPU)
     part[s]  = sum_t vals[s, t] * xg[s, t]
     y[i]     = sum_p part[part_idx[i, p]] * part_mask[i, p]
 
@@ -66,14 +66,21 @@ class DeviceEllr:
         return self.meta.nnz
 
 
+_FORMATS = ("ell", "dia", "auto", "bell", "rgell")
+
+
 def to_device(a: Union[CSRMatrix, EllpackR], policy: Union[str, Policy] = "fp32",
               k: Optional[int] = None, fmt: str = "ell"):
     """Pack a host CSR (or prebuilt EllpackR) into device arrays under a policy.
 
     ``fmt``: "ell" (gather kernel), "dia" (diagonal streaming kernel, with ELL
-    remainder), or "auto" (DIA when dense diagonals cover >=90% of nnz with
-    acceptable padding -- the stencil-matrix fast path; ELL otherwise).
+    remainder), "bell"/"rgell" (blocked layouts, see their modules), or
+    "auto": DIA when dense diagonals cover >=90% of nnz with at most 3x
+    padding (the stencil class), ELL otherwise, in every policy. The rule
+    reads only the matrix structure.
     """
+    if fmt not in _FORMATS:
+        raise ValueError(f"unknown SpMV format {fmt!r}; available: {_FORMATS}")
     policy = get_policy(policy)
     if fmt == "rgell" and isinstance(a, CSRMatrix):
         from . import rgell as _rgell
@@ -81,51 +88,14 @@ def to_device(a: Union[CSRMatrix, EllpackR], policy: Union[str, Policy] = "fp32"
     if fmt == "bell" and isinstance(a, CSRMatrix):
         from . import bell as _bell
         return _bell.bell_to_device(a, policy)
-    if fmt == "gsell" and isinstance(a, CSRMatrix):
-        if policy.double_word:
-            from . import gsell_df as _gdf
-            return _gdf.gsell_df_to_device(a)
-        from . import gsell as _gsell
-        return _gsell.gsell_to_device(a, policy)
     if fmt in ("auto", "dia") and isinstance(a, CSRMatrix):
-        from . import dia as _dia
         if fmt == "dia":
             return hybrid_to_device(a, policy)
+        from . import dia as _dia
         offs, cov = _dia.dia_coverage(a)
         waste = len(offs) * a.shape[0] / max(a.nnz, 1)
         if cov >= 0.90 and waste <= 3.0:
             return hybrid_to_device(a, policy)
-        # non-stencil: the GSELL lane-gather kernel (round 2) is the fast
-        # path for anything with column locality (FEM/mesh class); BELL and
-        # RG-ELL remain for scattered structure and df64. Arbitrated by the
-        # measured-constant cost models.
-        from . import bell as _bell
-        from . import gsell as _gsell
-        from . import rgell as _rgell
-        rows = np.repeat(np.arange(a.nrows, dtype=np.int64),
-                         a.row_lengths())
-        key = rows * (1 << 34) + (a.indices.astype(np.int64) // 8)
-        rg_slots = np.unique(key).size
-        t_rgell = (rg_slots / _bell.GATHER_ROWS_PER_S
-                   + rg_slots * 36 / _bell.BLK_STREAM_BPS)
-        if policy.double_word:
-            # df64: GSELL lane-gather with doubled value streams vs the
-            # RG-ELL row-gather fallback (both from measured-constant models)
-            from . import gsell_df as _gdf
-            plan = _gsell.build_gsell(a)
-            if _gdf.estimate_gsell_df(plan) < 2.0 * t_rgell:
-                return _gdf.gsell_df_to_device(plan)
-            return _rgell.rgell_to_device(a, policy)
-        r, c = _bell.choose_block_shape(a)
-        t_bell = _bell.estimate_bell(a, r, c)
-        plan = _gsell.build_gsell(a)
-        t_gsell = _gsell.estimate_gsell(plan)
-        best = min(t_gsell, t_bell, t_rgell)
-        if best == t_gsell:
-            return _gsell.gsell_to_device(plan, policy)
-        if best == t_bell:
-            return _bell.bell_to_device(a, policy, r=r, c=c)
-        return _rgell.rgell_to_device(a, policy)
     ell = a if isinstance(a, EllpackR) else build_ellr(a, k=k)
     vals_host = policy.cast_host(ell.vals)
     return DeviceEllr(
@@ -163,7 +133,9 @@ def _spmv_single(a: DeviceEllr, x: jax.Array, ftz_in: bool = False):
     if ftz_in or policy.flush_to_zero:
         xx = prec.ftz(xx)
     xg = jnp.take(xx, a.cols, axis=0, fill_value=0)  # [nsub, k]
-    part = jnp.sum(a.vals[0] * xg, axis=1, dtype=policy.accum_dtype)
+    # products and sums in the accumulation dtype; only storage is narrow
+    acc = policy.accum_dtype
+    part = jnp.sum(a.vals[0].astype(acc) * xg.astype(acc), axis=1)
     y = _combine_parts(part, a.part_idx, a.part_mask)
     return y.astype(a.vals[0].dtype)
 
@@ -219,13 +191,7 @@ def spmv(a, x, ftz_in: bool = False):
     (fp32/bf16 policies) or a DF pair (df64).
     """
     from .bell import DeviceBell, bell_spmv
-    from .gsell import DeviceGsell, spmv_gsell
-    from .gsell_df import DeviceGsellDf, spmv_gsell_df
     from .rgell import DeviceRgell, rgell_spmv
-    if isinstance(a, DeviceGsellDf):
-        return spmv_gsell_df(a, x)
-    if isinstance(a, DeviceGsell):
-        return spmv_gsell(a, x)
     if isinstance(a, DeviceBell):
         return bell_spmv(a, x)
     if isinstance(a, DeviceRgell):

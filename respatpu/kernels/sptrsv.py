@@ -1,4 +1,4 @@
-"""Level-scheduled sparse triangular solve (SpTRSV) on TPU.
+"""Level-scheduled sparse triangular solve (SpTRSV) on the device.
 
 Replaces ``cusparseXcsrsv2_solve`` (GPU/ilu0.cu:284-310). The host analysis
 (:func:`respatpu.analysis.build_tri_chunks`) permutes rows into level
@@ -41,8 +41,7 @@ def _pack_blocklets(chunk_ids: np.ndarray, rr: np.ndarray, jj: np.ndarray,
     Entries (chunk, slot-row r, source index j, value v) become dense 8x8
     blocklets keyed by (r//8, j//8): all entries of 8 neighbouring slot-rows
     reading the same 8-wide segment of the source vector share ONE row
-    gather (the BELL trick, kernels/bell.py; element gathers run at
-    ~0.15 Gelem/s on this platform vs 0.62 Grow/s row gathers).
+    gather (the BELL trick, kernels/bell.py).
     Returns per-chunk padded arrays (blk, sc, part_idx, part_mask).
     """
     R = C = 8

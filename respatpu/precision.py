@@ -6,19 +6,18 @@ flush-to-zero with MXCSR inline asm (test_pardiso.c:19-24) or ``nvcc
 -ftz=true`` (GPU/Makefile:4-5). Here precision is a *runtime policy object*:
 no recompiles, any kernel can run under any policy.
 
-TPUs have no native fp64, so the "reference precision" path is double-float
-("df64"): each logical fp64 number is an unevaluated sum hi+lo of two fp32
-values, giving ~49 bits of significand via error-free transformations
-(Dekker/Knuth/Veltkamp; see T. J. Dekker, "A floating-point technique for
-extending the available precision", 1971). All ops below are branch-free
-elementwise jnp code that XLA maps straight onto the VPU; they must NOT be
-rewritten with fast-math-style reassociation (JAX/XLA preserves FP semantics
-by default).
+The "reference precision" path is double-float ("df64"): each logical fp64
+number is an unevaluated sum hi+lo of two fp32 values, giving ~49 bits of
+significand via error-free transformations (Dekker/Knuth/Veltkamp; see T. J.
+Dekker, "A floating-point technique for extending the available precision",
+1971). All ops below are branch-free elementwise jnp code that XLA fuses
+into ordinary fp32 arithmetic; they must NOT be rewritten with
+fast-math-style reassociation (JAX/XLA preserves FP semantics by default).
+``eft_selfcheck`` verifies that the backend's compiler kept them exact.
 
-TPU note on FTZ: the VPU flushes subnormals by default, which is exactly the
-behavior the reference's fp32+FTZ configuration measures; ``ftz()`` makes the
-flush explicit so the policy also holds under CPU jax (tests) and documents
-the study's FTZ-on path.
+FTZ: XLA on the GPU and the CPU keeps subnormals unless asked, so the
+reference's fp32+FTZ configuration is the explicit ``ftz()`` flush that the
+``fp32_ftz`` policy applies to values and vectors.
 """
 from __future__ import annotations
 
@@ -69,10 +68,10 @@ def eft_selfcheck(warn: bool = True) -> bool:
     """Verify error-free transforms survive this backend's compiler.
 
     XLA:CPU's fusion emitter is known to miscompile EFT chains when broadcast
-    operands are fused in (error terms collapse to ~fp32 accuracy); TPU is
-    unaffected. Returns True when df64 semantics are intact. Fix for CPU runs:
-    add ``--xla_disable_hlo_passes=fusion`` to ``XLA_FLAGS`` *before* backend
-    initialization.
+    operands are fused in (error terms collapse to ~fp32 accuracy); XLA's GPU
+    backend keeps them exact. Returns True when df64 semantics are intact.
+    Fix for CPU runs: add ``--xla_disable_hlo_passes=fusion`` to
+    ``XLA_FLAGS`` *before* backend initialization.
     """
     import warnings
 
@@ -103,13 +102,19 @@ def eft_selfcheck(warn: bool = True) -> bool:
 
 
 def _ensure_eft_checked():
+    """Run :func:`eft_selfcheck` once per process. On the GPU a failure
+    raises: df64 results there would silently carry fp32 accuracy. On the
+    CPU (tests, rehearsals) it warns, with the flag that fixes it."""
     global _EFT_CHECKED
-    if not _EFT_CHECKED:
-        _EFT_CHECKED = True
-        try:
-            eft_selfcheck()
-        except Exception:
-            pass
+    if _EFT_CHECKED:
+        return
+    on_gpu = jax.default_backend() == "gpu"
+    if not eft_selfcheck(warn=not on_gpu):
+        if on_gpu:
+            raise RuntimeError(
+                "error-free transforms are miscompiled on this GPU backend; "
+                "df64 (emulated fp64) would only have fp32 accuracy")
+    _EFT_CHECKED = True
 
 # Veltkamp split constant for fp32: 2**12 + 1.  Kept as a python float
 # (weak-typed, exact in fp32): a module-level jnp array would initialize
@@ -389,7 +394,7 @@ BF16 = Policy("bf16", jnp.bfloat16)
 DF64 = Policy("df64", None, double_word=True)
 
 _POLICIES = {p.name: p for p in (FP32, FP32_FTZ, BF16, DF64)}
-_POLICIES["fp64"] = DF64  # alias: the fp64 path on TPU is emulated
+_POLICIES["fp64"] = DF64  # alias: the fp64 path is emulated
 
 
 def get_policy(name: Union[str, Policy]) -> Policy:

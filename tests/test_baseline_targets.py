@@ -1,8 +1,8 @@
-"""Integration tests tracking BASELINE.md targets (scaled-down, CPU mesh).
+"""Integration tests tracking the BASELINE.json targets (scaled-down, CPU mesh).
 
-The real-corpus, real-chip versions of these runs are produced by bench.py
-and respatpu.bench.study/scaling; these tests pin the *logic* of each target
-at small scale so regressions surface in CI.
+The catalogue-size versions of these runs are produced on the GPU by
+chip_smoke.py, bench.py and respatpu.bench.study/scaling; these tests pin the
+*logic* of each target at small scale so regressions surface in CI.
 """
 import numpy as np
 import pytest

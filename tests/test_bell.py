@@ -42,14 +42,20 @@ def test_bell_auto_shape_picks_candidate():
     assert (r, c) in ((8, 8), (8, 32), (16, 16), (16, 32), (32, 32))
 
 
+def test_auto_shape_reads_fewest_bytes():
+    from respatpu.kernels.bell import _CANDIDATES, bell_bytes
+    a = mesh_fem_3d(4096, 16.0, seed=4)
+    best = bell_bytes(a, *choose_block_shape(a))
+    assert all(best <= bell_bytes(a, r, c) for r, c in _CANDIDATES)
+
+
 def test_auto_format_mesh_picks_gather_kernel():
-    # round 2: the GSELL lane-gather kernel supersedes BELL for mesh
-    # matrices; both remain valid auto outcomes (cost-model arbitrated)
+    # unstructured mesh matrices take the ELL gather kernel; XLA fuses the
+    # gather, multiply and row reduction on the GPU
     a = mesh_fem_3d(8192, 16.0, seed=5)
     dev = to_device(a, "fp32", fmt="auto")
-    from respatpu.kernels.bell import DeviceBell
-    from respatpu.kernels.gsell import DeviceGsell
-    assert isinstance(dev, (DeviceGsell, DeviceBell))
+    from respatpu.kernels.spmv import DeviceEllr
+    assert isinstance(dev, DeviceEllr)
     x = np.random.default_rng(2).standard_normal(a.ncols)
     y = np.asarray(spmv(dev, x.astype(np.float32)), np.float64)
     y_ref = spmv_csr_reference(a, x)
@@ -64,13 +70,10 @@ def test_auto_format_stencil_still_dia():
 
 def test_auto_format_df64_stays_exact():
     from respatpu import precision as prec
-    from respatpu.kernels.gsell_df import DeviceGsellDf
-    from respatpu.kernels.rgell import DeviceRgell
+    from respatpu.kernels.spmv import DeviceEllr
     a = mesh_fem_3d(2048, 12.0, seed=6)
     dev = to_device(a, "df64", fmt="auto")
-    # FEM structure: the df64 lane-gather kernel (round 3) wins over the
-    # row-gather RG-ELL fallback in the measured-constant arbitration
-    assert isinstance(dev, (DeviceGsellDf, DeviceRgell))
+    assert isinstance(dev, DeviceEllr)  # df64 takes the same rule as fp32
     x = np.random.default_rng(3).standard_normal(a.ncols)
     y = prec.df_to_f64(spmv(dev, prec.df_from_f64(x)))
     y_ref = spmv_csr_reference(a, x)

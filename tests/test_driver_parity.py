@@ -43,11 +43,10 @@ def test_sweep_lu_covers_circuit_rows(tmp_path):
     """The sweep must produce status=ok (not band_infeasible) for a
     circuit-class corpus entry (run through the auto chain).
 
-    Scale note (round-4 verdict weak #5): this runs a 40k-nnz dc1 stand-in
-    — the largest the 2-vCPU CI budget covers in minutes (the cost is XLA
-    compile time for the multifrontal bucket shapes, not the numerics).
-    Catalogue-size evidence is the committed SWEEP_LU_r5.csv, produced on
-    the TPU by `python -m respatpu sweep lu --group moderate`."""
+    Scale note: this runs a 40k-nnz dc1 stand-in — the largest a CPU test
+    budget covers in minutes (the cost is XLA compile time for the
+    multifrontal bucket shapes, not the numerics). The catalogue-size dc1
+    solve runs on the GPU in ``chip_smoke.py``."""
     rows = runner.sweep_lu(["dc1"], policy="fp32",
                            max_synth_nnz=40_000, verbose=False,
                            max_band_bytes=1 << 18)

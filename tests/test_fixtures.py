@@ -67,12 +67,13 @@ def test_real_fixture_solve_residual():
     assert np.abs(np.asarray(x) - xt).max() / np.abs(xt).max() < 1e-3
 
 
-def test_real_fixture_spmv_gsell():
-    from respatpu.kernels.gsell import build_gsell, gsell_to_device, spmv_gsell
+def test_real_fixture_spmv_auto():
+    from respatpu.kernels.spmv import DeviceEllr, spmv, to_device
     import jax.numpy as jnp
     a = load_csr(fixture("bcspwr01.mtx"))
-    dev = gsell_to_device(build_gsell(a))
+    dev = to_device(a, "fp32", fmt="auto")
+    assert isinstance(dev, DeviceEllr)  # power-network pattern: no diagonals
     x = np.random.default_rng(0).standard_normal(a.shape[1]).astype(np.float32)
-    y = np.asarray(spmv_gsell(dev, jnp.asarray(x)))
+    y = np.asarray(spmv(dev, jnp.asarray(x)))
     ref = sp.csr_matrix(scipy.io.mmread(fixture("bcspwr01.mtx"))) @ x
     np.testing.assert_allclose(y, ref, rtol=2e-5, atol=1e-5)

@@ -7,7 +7,6 @@ import sys
 def test_graft_entry_subprocess():
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     r = subprocess.run([sys.executable, os.path.join(repo, "__graft_entry__.py")],
                        capture_output=True, text=True, timeout=600, cwd=repo,
